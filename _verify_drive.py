@@ -48,7 +48,7 @@ assert abs(est - exact_lml) < 0.05 * xl.shape[0]
 g_ls = jax.grad(lambda pp: _opt.lml_surrogate(ops.RBF(), pp, xl, yl, jax.random.key(1),
                 noise_variance=1e-2, num_probes=4, cg_max_iters=300, precond_rank=64))(
     {"sigma": jnp.float32(1.0), "lengthscale": jnp.float32(1.0)})
-print("large-scale grad (pallas vjp):", {k: round(float(v), 3) for k, v in g_ls.items()})
+print("large-scale grad (matvec vjp):", {k: round(float(v), 3) for k, v in g_ls.items()})
 assert all(np.isfinite(float(v)) for v in g_ls.values())
 
 theta = jnp.asarray([66,67,2.4,90,1.3,.66,1.2,.78,.18,1.6,.19], jnp.float32)

@@ -1,4 +1,4 @@
-"""gaussian_process_tpu — a TPU-native Gaussian-process inference engine.
+"""gaussian_process_tpu — a Gaussian-process inference engine for NVIDIA GPUs.
 
 A from-scratch JAX/XLA + Pallas + pjit/shard_map framework covering the
 capabilities of the reference repo ``happyjin/Gaussian_process``:
@@ -18,7 +18,8 @@ capabilities of the reference repo ``happyjin/Gaussian_process``:
   [ref: CO2_example.py:9-94]
 
 Architecture (bottom-up): ``ops`` (pairwise-distance / kernel-matrix
-primitives, incl. Pallas TPU tiles) -> ``linalg`` (jittered Cholesky,
+primitives and the matrix-free kernel matvec, incl. a Pallas GPU kernel)
+-> ``linalg`` (jittered Cholesky,
 triangular solves, preconditioned CG) -> ``gp`` (regression + Laplace
 classification) -> ``opt`` (LML gradient ascent, Bayesian optimization) ->
 ``parallel`` (mesh / sharding / collectives for multi-chip scale-out) ->

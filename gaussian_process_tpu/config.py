@@ -29,11 +29,6 @@ class SolveConfig:
     jitter_growth: float = 10.0
     # Conjugate-gradient settings (large-n path; no reference equivalent —
     # the reference always factorizes densely, e.g. GP_regression.py:138).
-    # Precision floor: on TPU the Pallas matvec's default 3-pass bf16
-    # output dot carries ~1.5e-5 relative error, so tolerances below 1e-5
-    # automatically switch the matvec to the full-precision (6-pass
-    # HIGHEST) dot — ~2x slower output dot, honest residuals
-    # (ops/pallas/kernel_ops._dot3; ADVICE r4).
     cg_tol: float = 1e-6
     cg_max_iters: int = 1000
     cg_precondition: bool = True

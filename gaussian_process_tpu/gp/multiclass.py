@@ -33,6 +33,7 @@ from jax import lax
 from gaussian_process_tpu.linalg import cholesky as _chol
 from gaussian_process_tpu import config as _config
 from gaussian_process_tpu.ops import kernels as _k
+from gaussian_process_tpu.ops import matvec as _mv
 
 
 class MulticlassLaplaceState(NamedTuple):
@@ -105,7 +106,7 @@ def laplace_fit_multiclass(
     def per_class_factor(Kc, swc):
         # L_c = chol(I + sW_c K_c sW_c), V_c = L_c^{-1} sW_c, so that
         # E_c = sW_c B_c^{-1} sW_c = V_c^T V_c. One TRSM (n RHS) per class;
-        # every later E_c application is two MXU matvecs/GEMMs instead of a
+        # every later E_c application is two matvecs/GEMMs instead of a
         # latency-bound triangular solve pair (VERDICT r2 weak #5: the old
         # formulation spent an extra O(n^3) cholesky_solve per class per
         # Newton iteration just to materialise E_c).
@@ -117,7 +118,7 @@ def laplace_fit_multiclass(
         return L, V
 
     def e_apply(V, u):
-        # E_c u = V_c^T (V_c u) — two matvecs, MXU-friendly
+        # E_c u = V_c^T (V_c u) — two matvecs
         return jnp.dot(
             V.T,
             jnp.dot(V, u, preferred_element_type=V.dtype,
@@ -366,32 +367,16 @@ def laplace_fit_multiclass_cg(
     x_train = jnp.atleast_2d(x_train)
     n = x_train.shape[0]
     C = int(num_classes)
-    if use_pallas is None:
-        use_pallas = (
-            jax.default_backend() == "tpu" and _k.is_stationary(kernel)
-        )
-    k_nw, p_nw, white_var = _k.split_white(kernel, params)
-    white = white_var if white_var is not None else 0.0
+    k_nw, p_nw, _ = _k.split_white(kernel, params)
 
-    if use_pallas:
-        from gaussian_process_tpu.ops import pallas as _pops
-
-        _dm = "highest" if cg_tol < 1e-5 else "split3"
-
-        def Kmv(u):  # u (C, n) -> (C, n): one sweep, C RHS share tiles
-            out = _pops.gram_matvec(
-                k_nw, p_nw, x_train, None, u.T, dot_mode=_dm
-            ).T
-            return out + white * u
-    else:
-        Kd = _k.gram(kernel, params, x_train)
-
-        def Kmv(u):
-            return (Kd @ u.T).T
+    def Kmv(u):  # u (C, n) -> (C, n): one sweep, C RHS share the K tiles
+        return _mv.gram_matvec(
+            kernel, params, x_train, None, u.T, use_pallas=use_pallas
+        ).T
 
     from gaussian_process_tpu.linalg import nystrom as _nys
 
-    U, _G, _idx = _nys.make_nystrom_factor(
+    U, _idx = _nys.make_nystrom_factor(
         k_nw, p_nw, x_train, rank=min(precond_rank, n)
     )
     r = U.shape[1]
@@ -428,8 +413,8 @@ def laplace_fit_multiclass_cg(
             Pt[:, :, None] * jnp.eye(C, dtype=dt)[None]
             - Pt[:, :, None] * Pt[:, None, :]
         )  # (n, C, C): the per-point W blocks (S = Wm^{1/2})
-        # HIGH (bf16x3) is plenty: G only preconditions — CG corrects any
-        # rounding — and the HIGHEST 6-pass build would dominate a 100k
+        # HIGH (TF32 on a GPU) is plenty: G only preconditions — CG
+        # corrects any rounding — and an FP32 build would dominate a 100k
         # Newton step
         G4 = jnp.einsum(
             "ncd,nj,nk->cdjk", Wm, U, U, precision=lax.Precision.HIGH

@@ -8,7 +8,7 @@ from gaussian_process_tpu.linalg.cholesky import (
     CholeskyResult,
 )
 from gaussian_process_tpu.linalg.cg import cg_solve, cg_solve_grad, CGState
-from gaussian_process_tpu.linalg.blocked import blocked_cholesky, blocked_tri_solve
+from gaussian_process_tpu.linalg.blocked import blocked_cholesky
 from gaussian_process_tpu.linalg.nystrom import (
     NystromPreconditioner,
     make_nystrom_preconditioner,
@@ -24,7 +24,6 @@ __all__ = [
     "cg_solve_grad",
     "CGState",
     "blocked_cholesky",
-    "blocked_tri_solve",
     "NystromPreconditioner",
     "make_nystrom_preconditioner",
 ]

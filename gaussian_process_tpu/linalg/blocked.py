@@ -1,47 +1,24 @@
-"""Blocked (panel) Cholesky and triangular solves tuned for the TPU MXU.
+"""Left-looking blocked Cholesky with FP32 update GEMMs.
 
-XLA's stock ``lax.linalg.cholesky`` on TPU expands to a blocked algorithm
-with a small fixed panel, so most of the n^3/3 work runs in narrow GEMMs and
-the factorization sits far from MXU peak. These routines re-block the same
-math with a wide panel (default 1024) and two TPU-specific choices:
+Used by ``cholesky.safe_cholesky`` for n >= ``MIN_BLOCKED_N``. On an H100
+at n=8192 (f32 RBF kernel + 5e-4 noise, the bench ``solve`` data) it
+factors in 10.6 ms against 8.6 ms for cuSOLVER's ``potrf``
+(``lax.linalg.cholesky``), but its log-determinant is 3x more accurate
+(relative error 1.2e-5 against 4.1e-5 vs float64): with the stock factor
+the posterior's LML misses the 3e-4 parity gate (4.3e-4), with this one
+it holds it (1.3e-5). PERF.md has the measurement.
 
-1. **Left-looking tiled factorization** (see ``blocked_cholesky``): exact
-   lower-triangle FLOPs (n^3/6 MACs — a square trailing SYRK would compute
-   both halves of a symmetric update, 2x waste), ~4 ops per panel with
-   growing GEMM inner dimensions, and a small XLA graph that compiles in
-   seconds (a triangle-chunked right-looking variant with the same FLOPs
-   needed O(p^2) slice/concat ops and hung the TPU compiler).
+The algorithm (see ``blocked_cholesky``): exact lower-triangle FLOPs
+(n^3/6 MACs), ~4 ops per panel with growing GEMM inner dimensions, and a
+small XLA graph. The update GEMMs run at ``Precision.HIGHEST`` (true FP32
+on a GPU; a bare f32 dot may run in TF32, which loses digits through
+Schur-complement cancellation).
 
-2. **Full-precision GEMMs by default.** f32 matmuls on the v5e MXU run as
-   bf16 multi-pass; ``precision`` selects the pass count. Measured on the
-   n=8192 RBF+5e-4-noise solve vs the f64 oracle (round-2 regression,
-   VERDICT.md weak #1): HIGH (bf16x3) update GEMMs lose 3 digits on the LML
-   (2.8e-3 rel err vs 1.5e-5 at HIGHEST) because Schur-complement
-   cancellation amplifies the dropped bf16-split cross terms. Default is
-   therefore HIGHEST (bf16x6, f32-faithful); HIGH remains an explicit knob
-   for error-tolerant paths (e.g. the variance RHS solve in gp/regression).
-
-Measured on v5e at n=8192 f32 (slope-timed so dispatch/RTT cancels,
-gram included at ~0.6 ms):
-    stock lax.linalg.cholesky        13.5 ms   (parity OK)
-    square-SYRK rightlook @HIGH      10.3 ms   (parity BROKEN — round 2 bug)
-    square-SYRK rightlook @HIGHEST   15.1 ms   (parity OK, loses to stock)
-    triangle-chunked @HIGHEST b1024  11.6 ms   (parity OK, compile HANGS)
-    left-looking @HIGHEST b1024      11.0 ms   (parity OK — production)
-
-``blocked_tri_solve`` applies the same GEMM-ification to L X = B: each
-diagonal panel is explicitly inverted once (the standard cuSOLVER/MAGMA
-potrf trick — O(b^3/2) per panel, negligible) so the panel solve and the
-running trailing update are both large GEMMs. Measured at n=8192, m=2049
-RHS: stock XLA TRSM 9.1 ms (15 TF/s) vs blocked-GEMM 2.5 ms @HIGH /
-4.5 ms @HIGHEST. ``panel_inverses`` exposes the inverse cache so a forward
-and a transposed solve against the same factor pay the inversions once.
-
-The panel loop is unrolled in Python (shapes shrink per panel, all static),
-which XLA compiles into one fused program; panel counts are n/block <= ~32,
-so compile time stays modest. Everything is pure jax.numpy — jit/vmap/grad
-compose as usual (gradients flow through the slicing and GEMMs; for the
-LML path the custom-VJP in ``cholesky.safe_cholesky`` bypasses this anyway).
+The panel loop is unrolled in Python (shapes shrink per panel, all
+static), which XLA compiles into one program; panel counts are
+n/block <= ~32, so compile time stays modest. Everything is pure
+jax.numpy — jit/vmap/grad compose as usual (for the LML path the
+custom-VJP in ``cholesky.safe_cholesky`` bypasses this anyway).
 
 No reference equivalent: the reference calls ``np.linalg.cholesky`` on the
 host [ref: GP_regression.py:138] and never blocks anything.
@@ -49,56 +26,12 @@ host [ref: GP_regression.py:138] and never blocks anything.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
-
-import jax
 import jax.numpy as jnp
 from jax import lax
 
 DEFAULT_BLOCK = 1024
-# below this size the stock XLA op is already fine and blocking only adds
-# launch overhead
+# below this size the stock factorization is used
 MIN_BLOCKED_N = 4096
-
-
-def _use_pallas_panels(dtype, use_pallas: Optional[bool]) -> bool:
-    """Fused Pallas panel factor+inverse (ops/pallas/chol.py): available but
-    OFF by default — measured on v5e at n=8192 (slope-timed, RTT-free, on
-    the round-2 right-looking variant): stock 13.7 ms / blocked-XLA 10.4 ms
-    / blocked-Pallas-panel 12.0 ms. The Mosaic per-fori-iteration overhead
-    (~0.6 us x b pivot steps) exceeds what the fused panel saves over XLA's
-    already-pipelined small chol+TRSM pair; the left-looking production
-    algorithm spends an even smaller fraction of its time in panels, so the
-    tradeoff has not flipped. Kept (tested, correct) for architectures
-    where it might. f32-only (f64 callers — the CPU parity suite — keep the
-    XLA panel ops)."""
-    if use_pallas is None:
-        return False
-    return use_pallas and dtype == jnp.float32
-
-
-def _tri_inv(L: jnp.ndarray) -> jnp.ndarray:
-    """Explicit L^{-1} of a small lower-triangular diagonal block.
-
-    Turning the panel-wide TRSM into a GEMM against L^{-1} is the standard
-    GPU/TPU trick (cuSOLVER potrf does the same): the O(b^3/2) inversion is
-    negligible at b <= ~1024 and the O(n b^2) application then runs at MXU
-    speed. Cholesky diagonal blocks are well-conditioned here (every K
-    carries the reference's noise jitter, SURVEY.md Q6), so the stability
-    cost vs substitution is far below f32 roundoff of the GEMMs themselves.
-    """
-    eye = jnp.eye(L.shape[-1], dtype=L.dtype)
-    return lax.linalg.triangular_solve(L, eye, left_side=True, lower=True)
-
-
-def _bounds(n: int, block: int) -> List[Tuple[int, int]]:
-    out = []
-    off = 0
-    while off < n:
-        b = min(block, n - off)
-        out.append((off, b))
-        off += b
-    return out
 
 
 def blocked_cholesky(
@@ -106,45 +39,29 @@ def blocked_cholesky(
     *,
     block: int = DEFAULT_BLOCK,
     precision: lax.Precision = lax.Precision.HIGHEST,
-    use_pallas: Optional[bool] = None,
-    trsm_via_inverse: bool = False,
 ) -> jnp.ndarray:
     """Lower Cholesky factor of PSD ``K`` via LEFT-looking tiled
     factorization. Semantically identical to ``lax.linalg.cholesky`` (NaN
-    on indefinite input), faster at n > 4096 on TPU.
+    on indefinite input).
 
     Each panel k gathers ALL its updates at once from the already-computed
     factor columns L[:, :kb]:
 
         A_kk' = K_kk - L_k: L_k:^T          (one small SYRK, inner dim kb)
-        L_kk  = chol(A_kk')                 (stock, or Pallas chol_inv_panel)
+        L_kk  = chol(A_kk')                 (stock)
         A_col = K_col - L_below L_k:^T      (ONE GEMM, inner dim kb)
-        L_col = A_col L_kk^{-T}             (TRSM / GEMM vs Pallas inverse)
+        L_col = A_col L_kk^{-T}             (TRSM)
 
     Why left-looking and not the textbook right-looking trailing update:
-    - FLOPs are the exact lower-triangle count (n^3/6 MACs). A square
-      trailing SYRK computes both halves of a symmetric update — 2x waste;
-      a triangle-aware chunked right-looking update fixes the FLOPs but
-      needs O(p^2) distinct slice/concat ops, which blew up the TPU
-      backend's compile time at p >= 8 panels (measured: bare compile hung
-      >240 s and wedged the compile service). Left-looking needs ~4 ops per
-      panel and compiles in ~16 s at n=8192.
-    - The per-panel GEMMs have growing inner dimension kb — large
-      MXU-friendly shapes instead of fixed narrow k=b updates.
-    Measured on v5e, n=8192 f32, slope-timed with the gram build (~0.6 ms)
-    included: stock 13.5 ms / right-looking square-SYRK @HIGHEST 15.1 ms /
-    triangle-chunked @HIGHEST 11.6 ms / THIS @HIGHEST b=1024 11.0 ms.
+    FLOPs are the exact lower-triangle count (a square trailing SYRK
+    computes both halves of a symmetric update — 2x waste), the graph
+    needs ~4 ops per panel (a triangle-aware right-looking update needs
+    O(p^2) slices), and the per-panel GEMMs have growing inner dimension
+    kb instead of fixed narrow k=b updates.
 
-    ``precision`` controls the MXU pass count for the update GEMMs.
-    HIGHEST (bf16x6, default) is the f32-faithful setting the parity gate
-    requires; HIGH (bf16x3) is ~2x GEMM throughput but loses ~3 digits on
-    the factor through Schur-complement cancellation (the round-2 parity
-    regression) — only use it where the caller can tolerate that.
-
-    ``use_pallas=True`` factors (and inverts) each diagonal panel with the
-    fused Pallas kernel :func:`ops.pallas.chol.chol_inv_panel`, turning the
-    panel TRSM into a GEMM; measured slower on v5e (see
-    ``_use_pallas_panels``), so off by default.
+    ``precision`` sets the update GEMMs' precision. HIGHEST (default) is
+    what the parity gate requires; lower settings lose ~3 digits on the
+    factor through Schur-complement cancellation.
 
     NaN semantics match stock cholesky: an indefinite leading block NaNs
     its panel, and the NaN propagates into every later panel through the
@@ -155,10 +72,6 @@ def blocked_cholesky(
         raise ValueError("blocked_cholesky expects a single (n, n) matrix")
     if n <= max(block, MIN_BLOCKED_N):
         return lax.linalg.cholesky(K)
-    pallas_panels = _use_pallas_panels(K.dtype, use_pallas)
-    if pallas_panels:
-        from gaussian_process_tpu.ops.pallas import chol as _pchol
-
     dtype = K.dtype
     L = jnp.zeros_like(K)
     off = 0
@@ -171,10 +84,7 @@ def blocked_cholesky(
                 Lrow, Lrow.T, preferred_element_type=dtype, precision=precision
             )
         rem = n - off - b
-        if pallas_panels:
-            L_kk, W_kk = _pchol.chol_inv_panel(A_kk)
-        else:
-            L_kk = lax.linalg.cholesky(A_kk)
+        L_kk = lax.linalg.cholesky(A_kk)
         if rem > 0:
             A_col = lax.dynamic_slice(K, (off + b, off), (rem, b))
             if off > 0:
@@ -183,118 +93,12 @@ def blocked_cholesky(
                     Lbot, Lrow.T, preferred_element_type=dtype,
                     precision=precision,
                 )
-            if pallas_panels:
-                L_col = jnp.dot(
-                    A_col, W_kk.T, preferred_element_type=dtype,
-                    precision=precision,
-                )
-            elif trsm_via_inverse:
-                # GEMM-ified panel solve (same trick as blocked_tri_solve):
-                # stock TRSM with rem RHS runs ~15 TF/s on v5e vs ~33 for
-                # the GEMM; the O(b^3/2) explicit inverse amortises over
-                # rem >> b rows. HIGHEST keeps the factor's error budget.
-                W = _tri_inv(L_kk)
-                L_col = jnp.dot(
-                    A_col, W.T, preferred_element_type=dtype,
-                    precision=lax.Precision.HIGHEST,
-                )
-            else:
-                L_col = lax.linalg.triangular_solve(
-                    L_kk, A_col, left_side=False, lower=True, transpose_a=True
-                )
+            L_col = lax.linalg.triangular_solve(
+                L_kk, A_col, left_side=False, lower=True, transpose_a=True
+            )
             panel = jnp.concatenate([L_kk, L_col], axis=0)
         else:
             panel = L_kk
         L = lax.dynamic_update_slice(L, panel, (off, off))
         off += b
     return L
-
-
-# The left-looking algorithm IS blocked_cholesky now; alias kept for callers
-# that name the algorithm explicitly.
-leftlook_cholesky = blocked_cholesky
-
-
-def panel_inverses(
-    L: jnp.ndarray, *, block: int = DEFAULT_BLOCK
-) -> List[jnp.ndarray]:
-    """Explicit inverses of L's diagonal panels, for reuse across several
-    :func:`blocked_tri_solve` calls against the same factor (a forward and
-    a transposed solve pay the O(n b^2 / 2) inversions once)."""
-    return [
-        _tri_inv(lax.dynamic_slice(L, (o, o), (b, b)))
-        for o, b in _bounds(L.shape[-1], block)
-    ]
-
-
-def blocked_tri_solve(
-    L: jnp.ndarray,
-    B: jnp.ndarray,
-    *,
-    trans: bool = False,
-    block: int = DEFAULT_BLOCK,
-    precision: lax.Precision = lax.Precision.HIGHEST,
-    invs: Optional[Sequence[jnp.ndarray]] = None,
-) -> jnp.ndarray:
-    """Solve L X = B (or L^T X = B with ``trans``) for lower-triangular L
-    with (n, m) RHS as a chain of GEMMs (running trailing update):
-
-    Forward:   for each block row i (top-down):
-                   X_i    = L_ii^{-1} B_i            (GEMM vs cached inverse)
-                   B_rest-= L[rest, i] X_i           (one GEMM per panel)
-    Backward (``trans``) runs block rows bottom-up with L[i, :]^T.
-
-    ``precision`` gates the MXU pass count (see module docstring): HIGHEST
-    default; HIGH for RHS whose downstream use tolerates ~1e-3 (e.g. the
-    posterior-variance v solve — gp/regression.py opts in explicitly).
-    ``invs``: pass :func:`panel_inverses` output to share inversion work.
-    """
-    n = L.shape[-1]
-    vec = B.ndim == 1
-    if vec:
-        B = B[:, None]
-    if n <= max(block, MIN_BLOCKED_N) and invs is None:
-        X = lax.linalg.triangular_solve(
-            L, B, left_side=True, lower=True, transpose_a=trans
-        )
-        return X[:, 0] if vec else X
-
-    bounds = _bounds(n, block)
-    if invs is None:
-        invs = panel_inverses(L, block=block)
-    p = len(bounds)
-    X_blocks: List[Optional[jnp.ndarray]] = [None] * p
-
-    if not trans:
-        Bwork = B
-        for i, (oi, bi) in enumerate(bounds):
-            Xi = jnp.dot(
-                invs[i], Bwork[:bi], preferred_element_type=B.dtype,
-                precision=precision,
-            )
-            X_blocks[i] = Xi
-            rem = Bwork.shape[0] - bi
-            if rem == 0:
-                break
-            Lri = lax.dynamic_slice(L, (oi + bi, oi), (rem, bi))
-            Bwork = Bwork[bi:] - jnp.dot(
-                Lri, Xi, preferred_element_type=B.dtype, precision=precision
-            )
-    else:
-        Bwork = B
-        for i in range(p - 1, -1, -1):
-            oi, bi = bounds[i]
-            Xi = jnp.dot(
-                invs[i].T, Bwork[oi:], preferred_element_type=B.dtype,
-                precision=precision,
-            )
-            X_blocks[i] = Xi
-            if oi == 0:
-                break
-            Lio = lax.dynamic_slice(L, (oi, 0), (bi, oi))
-            Bwork = Bwork[:oi] - jnp.dot(
-                Lio.T, Xi, preferred_element_type=B.dtype, precision=precision
-            )
-
-    X = jnp.concatenate(X_blocks, axis=0)
-    return X[:, 0] if vec else X

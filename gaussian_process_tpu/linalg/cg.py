@@ -3,8 +3,8 @@
 No reference equivalent — the reference always materialises and factorizes
 K densely (e.g. [ref: GP_regression.py:138]), which caps n at what one
 host's RAM and O(n^3) tolerate. CG + a matrix-free kernel matvec (see
-ops/pallas/matvec and parallel/matvec) is the 100k-point path: K at
-n = 100k in f32 is 40 GB and never fits HBM, but K@v streams in tiles.
+ops/matvec and parallel/kernel_blocks) is the 100k-point path: K at
+n = 100k in f32 is 42 GB, but K@v can be rebuilt tile by tile.
 
 The well-conditioned setting (the reference always adds noise s = 5e-4 to
 the diagonal [ref: GP_regression.py:120]) makes plain Jacobi-preconditioned

@@ -4,8 +4,7 @@ The reference factorizes densely everywhere (``np.linalg.cholesky``
 [ref: GP_regression.py:138]) and — wastefully — inverts triangular factors
 (``np.linalg.inv(L)`` [ref: GP_binary_classification.py:108,
 CO2_example.py:144,169,199]). Here every solve goes through
-``jax.lax.linalg.triangular_solve`` (XLA's blocked TRSM, which maps onto the
-MXU), and a non-PSD factorization is detected *inside the compiled program*
+``jax.lax.linalg.triangular_solve`` (cuBLAS TRSM on a GPU), and a non-PSD factorization is detected *inside the compiled program*
 (NaN on the factor diagonal) and retried with escalating jitter via
 ``lax.while_loop`` — no host round-trip, jit/vmap/grad-safe.
 
@@ -26,11 +25,11 @@ from gaussian_process_tpu.linalg import blocked as _blocked
 
 
 def _chol_dispatch(K: jnp.ndarray) -> jnp.ndarray:
-    """Stock XLA Cholesky below MIN_BLOCKED_N; wide-panel blocked (with the
-    fused Pallas panel factor+inverse on TPU/f32) above it — the measured
-    v5e crossover where XLA's narrow-panel factorization goes latency-bound
-    (see linalg/blocked.py). Semantics identical (NaN on indefinite input),
-    so the jitter-retry and custom_vjp logic below are algorithm-agnostic."""
+    """Stock Cholesky below MIN_BLOCKED_N; the left-looking blocked one,
+    whose FP32 update GEMMs give a more accurate factor than cuSOLVER's
+    f32 potrf, above it (see linalg/blocked.py). Semantics identical (NaN
+    on indefinite input), so the jitter-retry and custom_vjp logic below
+    are algorithm-agnostic."""
     if K.ndim == 2 and K.shape[-1] >= _blocked.MIN_BLOCKED_N:
         return _blocked.blocked_cholesky(K)
     return lax.linalg.cholesky(K)
@@ -127,12 +126,12 @@ def safe_cholesky(
 
     ``initial_jitter`` is added unconditionally (use it for the reference's
     noise term s*I [ref: GP_regression.py:138]); retries start near machine
-    epsilon for K's dtype, scaled by mean diagonal magnitude (float32 on TPU
-    needs ~1e4x more jitter than the reference's float64 constants assume).
+    epsilon for K's dtype, scaled by mean diagonal magnitude (float32 needs
+    ~1e4x more jitter than the reference's float64 constants assume).
 
     Cost: exactly ONE factorization when K + initial_jitter*I is already PSD
-    (the overwhelmingly common case — measured 16 ms vs 28 ms at n=8192 f32
-    on TPU v5e against the old probe-then-refactorize formulation). The
+    (the overwhelmingly common case; the older probe-then-refactorize
+    formulation paid two). The
     retry search lives inside a custom_vjp primal, so reverse-mode AD never
     sees the while_loop; the pullback treats the selected jitter as constant
     (it is piecewise-constant in K).

@@ -2,21 +2,30 @@
 
 Plain Jacobi-preconditioned CG stalls on dense RBF systems at n ~ 100k:
 the kernel's top eigenvalue grows O(n) while the noise floor stays at
-s = 1e-2, so kappa ~ 1e5-1e6 and the residual barely moves (measured on
-v5e: ||r|| 241 -> 192 after 100 iterations at n = 102400). The standard
-fix ("Preconditioning Kernel Matrices", PAPERS.md) is a low-rank spectral
-preconditioner: approximate K by its Nyström projection onto r landmark
-points and invert that approximation exactly via Woodbury.
+s = 1e-2, so kappa ~ 1e5-1e6 and the residual barely moves (||r|| 241 ->
+192 after 100 iterations at n = 102400). The standard fix
+("Preconditioning Kernel Matrices", PAPERS.md) is a low-rank spectral
+preconditioner built from the Nyström projection of K onto r landmarks:
 
-    K  ~=  U U^T,     U = K_nm L_mm^{-T}   (n x r),   K_mm = L_mm L_mm^T
-    P   =  U U^T + s I
-    P^{-1} v = (v - U (s I_r + U^T U)^{-1} U^T v) / s
+    K  ~=  U U^T = Q diag(lam) Q^T,   U = K_nm L_mm^{-T},  K_mm = L_mm L_mm^T
+    P   =  Q diag(lam + s) Q^T + (lam_min + s) (I - Q Q^T)
+    P^{-1} v = v / (lam_min + s) + Q [1/(lam + s) - 1/(lam_min + s)] Q^T v
 
-Setup is O(n r^2 + r^3) FLOPs and O(n r) memory — trivial next to one
-kernel matvec — and each application is two (n x r) GEMMs. The
-preconditioned system's condition number drops to roughly
-(lambda_{r+1}(K) + s) / s, which for fast-decaying RBF spectra turns
-hundreds of stalled iterations into tens of converging ones.
+with Q (n x r) orthonormal, from a Householder QR of U and an
+eigendecomposition of the small R R^T. This is the form of Frangella,
+Tropp & Udell, "Randomized Nyström preconditioning" (SIAM J. Matrix
+Anal. Appl., 2023): the complement of Q's range is scaled to the smallest
+retained eigenvalue instead of s.
+
+Why not the textbook Woodbury apply (v - U (s I + U^T U)^{-1} U^T v) / s:
+in f32 it subtracts two vectors that agree to lam_max / s ~ 4e5, after an
+r x r solve whose error is kappa(s I + U^T U) * eps. At n = 102400 on an
+H100 that apply reproduced P^{-1} to no digit and CG never converged
+(120 iterations, residual above the right-hand side); with orthonormal Q
+the same problem converges in 17 iterations (PERF.md).
+
+Setup is O(n r^2 + r^3) FLOPs and O(n r) memory — small next to the
+kernel matvecs of one solve — and each application is two (n x r) GEMMs.
 
 No reference equivalent (the reference never solves beyond dense Cholesky,
 [ref: GP_regression.py:138]); this powers the framework's n = 100k path
@@ -25,7 +34,7 @@ No reference equivalent (the reference never solves beyond dense Cholesky,
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
@@ -36,25 +45,45 @@ from gaussian_process_tpu.ops import kernels as _k
 
 
 class NystromPreconditioner(NamedTuple):
-    U: jnp.ndarray  # (n, r) Nystrom factor K_nm L_mm^{-T}
-    chol_G: jnp.ndarray  # (r, r) chol(s I + U^T U)
+    Q: jnp.ndarray  # (n, r) orthonormal eigenvectors of U U^T
+    lam: jnp.ndarray  # (r,) its eigenvalues, ascending
     shift: jnp.ndarray  # scalar s
     landmarks: jnp.ndarray  # (r,) landmark indices into x
 
     def apply(self, v: jnp.ndarray) -> jnp.ndarray:
-        """P^{-1} v via Woodbury; v is (n,) or (n, k)."""
-        vec = v.ndim == 1
-        vv = v[:, None] if vec else v
-        w = jnp.dot(
-            self.U.T, vv, preferred_element_type=vv.dtype,
-            precision=lax.Precision.HIGHEST,
-        )
-        z = _chol.cholesky_solve(self.chol_G, w)
-        out = (vv - jnp.dot(
-            self.U, z, preferred_element_type=vv.dtype,
-            precision=lax.Precision.HIGHEST,
-        )) / self.shift
-        return out[:, 0] if vec else out
+        """P^{-1} v; v is (n,) or (n, k)."""
+        return eig_apply(self.Q, self.lam, self.shift, v)
+
+
+def eig_basis(U: jnp.ndarray):
+    """(Q, lam) with U U^T = Q diag(lam) Q^T, Q orthonormal (Householder
+    QR of U, then eigh of the small R R^T); lam ascending, clipped at 0."""
+    Q, R = jnp.linalg.qr(U)
+    lam, Z = jnp.linalg.eigh(
+        jnp.dot(R, R.T, preferred_element_type=R.dtype, precision=lax.Precision.HIGHEST)
+    )
+    Q = jnp.dot(Q, Z, preferred_element_type=Q.dtype, precision=lax.Precision.HIGHEST)
+    return Q, jnp.maximum(lam, 0.0)
+
+
+def eig_apply(Q, lam, shift, v, *, reduce=None):
+    """P^{-1} v for P = Q diag(lam + s) Q^T + (lam_min + s)(I - Q Q^T).
+
+    ``reduce`` sums the (r, k) projection across devices when Q and v are
+    row-sharded (parallel/cg.py passes a psum)."""
+    vec = v.ndim == 1
+    vv = v[:, None] if vec else v
+    floor = lam[0] + shift
+    coef = 1.0 / (lam + shift) - 1.0 / floor
+    w = jnp.dot(Q.T, vv, preferred_element_type=vv.dtype,
+                precision=lax.Precision.HIGHEST)
+    if reduce is not None:
+        w = reduce(w)
+    out = vv / floor + jnp.dot(
+        Q, coef[:, None].astype(vv.dtype) * w, preferred_element_type=vv.dtype,
+        precision=lax.Precision.HIGHEST,
+    )
+    return out[:, 0] if vec else out
 
 
 def make_nystrom_preconditioner(
@@ -75,27 +104,22 @@ def make_nystrom_preconditioner(
     Landmarks are a uniform random subset (``key=None`` -> evenly strided
     subset, deterministic).
 
-    ``row_chunk``: build U in ``lax.scan`` row blocks of this size. The
+    ``row_chunk``: build U in ``lax.map`` row blocks of this size. The
     dense build holds K_nm, its transpose, the TRSM result AND U
-    simultaneously (4x n*r floats — measured r4: rank 2048 at n = 204800
-    OOMs 16 GB HBM as a standalone program even though U itself is only
-    1.7 GB); the chunked build's workspace is O(row_chunk * rank) beside
+    simultaneously (4x n*r floats: 6.7 GB for rank 2048 at n = 204800,
+    where U itself is 1.7 GB); the chunked build's workspace is O(row_chunk * rank) beside
     the U output, at the cost of applying an explicit L_mm^{-T} as a GEMM
     per chunk (preconditioner-quality arithmetic — CG corrects any
     rounding). "auto"/None: chunk at 65536 rows when n * r would exceed
     ~2^28 floats, else the dense build.
     """
-    U, G, idx = make_nystrom_factor(
+    U, idx = make_nystrom_factor(
         kernel, params, x, rank=rank, key=key, jitter=jitter,
         row_chunk=row_chunk,
     )
-    G = G + jnp.asarray(shift, U.dtype) * jnp.eye(G.shape[0], dtype=U.dtype)
-    chol_G = _chol.safe_cholesky(G).factor
+    Q, lam = eig_basis(U)
     return NystromPreconditioner(
-        U=U,
-        chol_G=chol_G,
-        shift=jnp.asarray(shift, U.dtype),
-        landmarks=idx,
+        Q=Q, lam=lam, shift=jnp.asarray(shift, U.dtype), landmarks=idx,
     )
 
 
@@ -110,13 +134,13 @@ def make_nystrom_factor(
     row_chunk: Optional[int] = None,
 ):
     """The bare rank-``rank`` Nyström factor of K(x, x): returns
-    ``(U, G, landmarks)`` with K ~= U U^T and G = U^T U (r, r).
+    ``(U, landmarks)`` with K ~= U U^T.
 
-    Shared by :func:`make_nystrom_preconditioner` (which shifts G and
-    factorizes) and consumers that re-weight U per outer iteration — the
-    Laplace classifier preconditions B = I + sW K sW with
-    I + (sW U)(sW U)^T, rebuilding only the (r, r) Gram each Newton step
-    while U is computed once (gp/classification.py, r5).
+    Shared by :func:`make_nystrom_preconditioner` (which orthonormalises
+    it) and consumers that re-weight U per outer iteration — the Laplace
+    classifier preconditions B = I + sW K sW with I + (sW U)(sW U)^T,
+    rebuilding only the (r, r) Gram each Newton step while U is computed
+    once (gp/classification.py, r5).
     """
     x = _k._dist._as_2d(x)
     n = x.shape[0]
@@ -143,22 +167,16 @@ def make_nystrom_factor(
             res.factor, jnp.eye(r, dtype=x.dtype), left_side=True, lower=True
         ).T  # L_mm^{-T} (r, r)
 
-        def body(G_acc, inp):
+        def block(inp):
             x_c, m_c = inp
             Kc = _k.gram(kernel, params, x_c, z)  # (c, r)
             Uc = jnp.dot(
                 Kc, Wt, preferred_element_type=x.dtype,
                 precision=lax.Precision.HIGHEST,
             )
-            Uc = jnp.where(m_c[:, None], Uc, 0.0)
-            G_acc = G_acc + jnp.dot(
-                Uc.T, Uc, preferred_element_type=x.dtype,
-                precision=lax.Precision.HIGHEST,
-            )
-            return G_acc, Uc
+            return jnp.where(m_c[:, None], Uc, 0.0)
 
-        G, U_blocks = lax.scan(body, jnp.zeros((r, r), x.dtype), (xb, valid))
-        U = U_blocks.reshape(n_pad, r)[:n]
+        U = lax.map(block, (xb, valid)).reshape(n_pad, r)[:n]
     else:
         K_nm = _k.gram(kernel, params, x, z)  # (n, r)
         # U = K_nm L_mm^{-T}  <=>  U^T = L_mm^{-1} K_nm^T
@@ -166,8 +184,4 @@ def make_nystrom_factor(
             res.factor, K_nm.T, left_side=True, lower=True
         )
         U = Ut.T
-        G = jnp.dot(
-            Ut, U, preferred_element_type=U.dtype,
-            precision=lax.Precision.HIGHEST,
-        )
-    return U, G, idx
+    return U, idx

@@ -121,7 +121,7 @@ class GPRegressor:
     ) -> gp.WhitenedPosterior:
         """f32-safe whitened posterior (``gp.whitened_posterior``): inputs
         centered, targets standardised via an exact Scaled-kernel
-        reparameterisation — the TPU path for ill-conditioned data (e.g.
+        reparameterisation — the f32 path for ill-conditioned data (e.g.
         year-valued CO2 inputs with book-scale amplitudes, where the raw
         f32 dot-trick sqdist and 1e4-magnitude kernel entries break).
         Stationary kernels only; accuracy contract in

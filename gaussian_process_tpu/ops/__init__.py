@@ -1,4 +1,4 @@
-"""Kernel-matrix construction primitives (XLA + Pallas TPU)."""
+"""Kernel-matrix construction and matrix-free matvec primitives."""
 
 from gaussian_process_tpu.ops.distance import sqdist, absdist
 from gaussian_process_tpu.ops.kernels import (
@@ -18,6 +18,7 @@ from gaussian_process_tpu.ops.kernels import (
     co2_params_from_vector,
     co2_vector_from_params,
 )
+from gaussian_process_tpu.ops.matvec import gram_matvec, matvec_path, xla_matvec
 
 __all__ = [
     "sqdist",
@@ -37,4 +38,7 @@ __all__ = [
     "co2_kernel",
     "co2_params_from_vector",
     "co2_vector_from_params",
+    "gram_matvec",
+    "matvec_path",
+    "xla_matvec",
 ]

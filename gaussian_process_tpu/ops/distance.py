@@ -3,11 +3,11 @@
 The reference computes squared distances with a broadcast subtraction,
 ``((a[:, :, None] - b[:, :, None].T) ** 2).sum(1)`` [ref: GP_regression.py:18,
 CO2_example.py:76-87] — an O(n*m*d) VPU-only pattern that materialises an
-(n, d, m) intermediate. On TPU we instead use the expansion
+(n, d, m) intermediate. Here we instead use the expansion
 
     ||a_i - b_j||^2 = ||a_i||^2 + ||b_j||^2 - 2 a_i . b_j
 
-so the dominant term is a single (n, d) x (d, m) matmul that lands on the MXU
+so the dominant term is a single (n, d) x (d, m) matmul
 and XLA fuses the rank-1 norm corrections into the same loop. For tiny d and
 strict accuracy requirements (float32 cancellation), ``method="diff"`` keeps
 the broadcast form.
@@ -30,7 +30,7 @@ def _as_2d(x: jnp.ndarray) -> jnp.ndarray:
 def sqdist(a: jnp.ndarray, b: jnp.ndarray, *, method: str = "dot") -> jnp.ndarray:
     """Pairwise squared Euclidean distance matrix, shape (n, m).
 
-    method="dot": MXU-friendly ||a||^2 + ||b||^2 - 2ab^T (clamped at 0).
+    method="dot": matmul-friendly ||a||^2 + ||b||^2 - 2ab^T (clamped at 0).
     method="diff": broadcast subtraction (reference-faithful, more accurate
     at low precision; O(n*m*d) VPU work).
     """
@@ -49,11 +49,11 @@ def sqdist(a: jnp.ndarray, b: jnp.ndarray, *, method: str = "dot") -> jnp.ndarra
     b = b - center
     a2 = jnp.sum(a * a, axis=-1)[:, None]
     b2 = jnp.sum(b * b, axis=-1)[None, :]
-    # precision=HIGHEST: TPU f32 matmuls default to bfloat16 passes, whose
-    # ~8e-3 relative error in the cross term is larger than the GP noise
-    # jitter (5e-4) and corrupts K outright (measured 0.27 abs error in an
-    # RBF gram at n=4096). The d-contraction is O(n*m*d) flops — negligible
-    # next to the O(n^3) factorization — so full f32 costs nothing here.
+    # precision=HIGHEST: a default-precision f32 matmul may run in reduced
+    # precision (TF32 on a GPU, ~1e-3 relative), an error in the cross
+    # term larger than the GP noise jitter (5e-4) that corrupts K
+    # outright. The d-contraction is O(n*m*d) flops — negligible next to
+    # the O(n^3) factorization — so full f32 costs nothing here.
     cross = jnp.dot(
         a, b.T, preferred_element_type=a.dtype, precision=jax.lax.Precision.HIGHEST
     )

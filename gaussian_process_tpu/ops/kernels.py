@@ -18,7 +18,7 @@ pairwise-distance computation (the reference recomputes sqdist per call —
 its composite shares it too [ref: CO2_example.py:76-94]).
 
 Stationary kernels are evaluated from precomputed distance matrices, which is
-what lets the Pallas tiled builder (ops/pallas) reuse the same math per tile.
+what lets the fused matvec kernel (ops/pallas) reuse the same math per tile.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ class _DistCache:
 class TileDistCache:
     """Distance 'cache' over a precomputed tile — lets the same kernel tree
     evaluate inside a Pallas tile program (ops/pallas), where sqdist is
-    computed on-chip per (block_row, block_col) tile. Only stationary kernels
+    computed on the device per (block_row, block_col) tile. Only stationary kernels
     can be evaluated this way (Linear needs raw coordinates)."""
 
     def __init__(self, sq: jnp.ndarray, l2: Optional[jnp.ndarray] = None):
@@ -137,8 +137,8 @@ class Linear(Kernel):
         c = params["offset"]
         a = cache.x1 - c
         b = cache.x2 - c
-        # full-f32 MXU passes: bf16-default matmul error (~8e-3 rel) exceeds
-        # the GP jitter scale (see ops/distance.py).
+        # full f32: a default-precision matmul's error (TF32 on a GPU)
+        # exceeds the GP jitter scale (see ops/distance.py).
         return jnp.dot(
             a, b.T, preferred_element_type=a.dtype, precision=jax.lax.Precision.HIGHEST
         )
@@ -232,7 +232,7 @@ class Matern(Kernel):
     Beyond-reference breadth: the reference ships only RBF/linear/periodic
     plus the CO2 composite [ref: GP_regression.py:8-50, CO2_example.py:9-94];
     Matérn is the standard rough-process complement. Stationary (distance-only),
-    so it runs on the Pallas tile path like the others.
+    so it runs on the fused matvec path like the others.
     """
 
     nu: float = 2.5  # static: selects the closed form at trace time
@@ -452,7 +452,7 @@ def split_white(kernel: Kernel, params: Params):
     """Split top-level White terms out of a Sum: returns
     (kernel_without_white, params_without_white, white_variance_or_None).
 
-    The Pallas tile path handles the white diagonal via a global-index mask
+    The matrix-free matvec adds the white diagonal as ``white * v``
     instead of evaluating an identity per tile.
     """
     if isinstance(kernel, White):

@@ -1,6 +1,5 @@
-"""Pallas TPU tile kernels (Mosaic-compiled native tier)."""
+"""Pallas GPU kernels (Triton route)."""
 
-from gaussian_process_tpu.ops.pallas.kernel_ops import gram, gram_ad, gram_matvec
-from gaussian_process_tpu.ops.pallas.chol import chol_inv_panel
+from gaussian_process_tpu.ops.pallas.kernel_matvec import fused_matvec
 
-__all__ = ["gram", "gram_ad", "gram_matvec", "chol_inv_panel"]
+__all__ = ["fused_matvec"]

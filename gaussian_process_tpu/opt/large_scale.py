@@ -7,8 +7,8 @@ matrix-free estimator stack ("Preconditioning Kernel Matrices" /
 GPyTorch-style, PAPERS.md):
 
 - quadratic term: alpha = A^{-1} y via Nyström-preconditioned CG
-  (linalg.cg + linalg.nystrom) over the Pallas ``gram_matvec`` — forward
-  AND reverse passes stream kernel tiles through VMEM;
+  (linalg.cg + linalg.nystrom) over ``ops.gram_matvec`` — forward AND
+  reverse passes rebuild kernel tiles instead of storing K;
 - gradient of the quadratic term: d(-1/2 y^T A^{-1} y)/dtheta
   = +1/2 alpha^T (dA/dtheta) alpha — one VJP of the matvec at alpha;
 - gradient of the log-determinant: d(-1/2 log|A|)/dtheta
@@ -38,26 +38,17 @@ import optax
 from gaussian_process_tpu.linalg import cg as _cg
 from gaussian_process_tpu.linalg import nystrom as _nys
 from gaussian_process_tpu.ops import kernels as _k
+from gaussian_process_tpu.ops import matvec as _mv
 
 
 def _make_matvec(kernel, x, noise_variance, use_pallas):
-    """(params, v) -> (K(params) + shift) @ v with White folded into shift.
-
-    v may be (n,) or (n, k). Differentiable in params/v (the Pallas path via
-    its custom VJP)."""
+    """(params, v) -> (K(params) + noise) @ v; v may be (n,) or (n, k).
+    Differentiable in params and v through ``ops.gram_matvec``'s VJP."""
 
     def matvec(params, v):
-        k_nw, p_nw, white = _k.split_white(kernel, params)
-        shift = noise_variance + (white if white is not None else 0.0)
-        vv = v[:, None] if v.ndim == 1 else v
-        if use_pallas:
-            from gaussian_process_tpu.ops import pallas as _pops
-
-            out = _pops.gram_matvec(k_nw, p_nw, x, None, vv, dtype=vv.dtype)
-        else:
-            out = _k.gram(k_nw, p_nw, x) @ vv
-        out = out + shift * vv
-        return out[:, 0] if v.ndim == 1 else out
+        return _mv.gram_matvec(
+            kernel, params, x, None, v, use_pallas=use_pallas
+        ) + noise_variance * v
 
     return matvec
 
@@ -93,8 +84,6 @@ def lml_surrogate(
     the LML's value (use :func:`gp.log_marginal_likelihood` or SLQ for
     that).
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu" and _k.is_stationary(kernel)
     matvec = _make_matvec(kernel, x, noise_variance, use_pallas)
     n = y.shape[0]
 
@@ -215,8 +204,6 @@ def slq_logdet(
     values honest in f32; m = lanczos_iters <= ~64 so the cost is m kernel
     matvecs + O(n m^2) per probe.
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu" and _k.is_stationary(kernel)
     matvec = _make_matvec(kernel, x, noise_variance, use_pallas)
     return slq_logdet_matvec(
         lambda v: matvec(params, v), x.shape[0], key,
@@ -251,7 +238,8 @@ def slq_logdet_matvec(
             alpha = jnp.dot(w, q)
             w = w - alpha * q
             # full reorthogonalisation against all previous vectors
-            w = w - Q @ (Q.T @ w)
+            hi = jax.lax.Precision.HIGHEST
+            w = w - jnp.dot(Q, jnp.dot(Q.T, w, precision=hi), precision=hi)
             beta = jnp.linalg.norm(w)
             q_next = jnp.where(beta > 0, w / jnp.where(beta > 0, beta, 1.0), w)
             Q = Q.at[:, i].set(q)
@@ -293,8 +281,6 @@ def lml_estimate(
     """Full LML *value* estimate at large n: exact quadratic term (one
     Nyström-preconditioned CG solve) + SLQ logdet. The matrix-free stand-in
     for ``gp.log_marginal_likelihood`` when K cannot be materialised."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu" and _k.is_stationary(kernel)
     matvec = _make_matvec(kernel, x, noise_variance, use_pallas)
     n = y.shape[0]
     k_nw, p_nw, white = _k.split_white(kernel, params)

@@ -2,7 +2,7 @@
 
 The whole CG iteration runs *inside* ``shard_map``: vectors stay row-sharded,
 the matvec is the ring kernel matvec (kernel_blocks.ring_matvec's local body),
-and inner products reduce with ``psum`` over ICI. One jitted program; no host
+and inner products reduce with ``psum`` over the interconnect. One jitted program; no host
 round-trips per iteration.
 
 No reference equivalent (single-chip ``np.linalg`` everywhere,
@@ -21,7 +21,9 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from gaussian_process_tpu.linalg import cg as _cg
 from gaussian_process_tpu.linalg import cholesky as _chol
+from gaussian_process_tpu.linalg import nystrom as _nys
 from gaussian_process_tpu.ops import kernels as _k
+from gaussian_process_tpu.ops import matvec as _mv
 
 
 def _landmark_global_indices(n_eff: int, rank: int) -> np.ndarray:
@@ -33,44 +35,41 @@ def _landmark_global_indices(n_eff: int, rank: int) -> np.ndarray:
     return np.asarray((np.arange(r) * (n_eff // r)), np.int32)
 
 
-def _nystrom_local(k_nw, p_nw, x_local, *, axis, shift, g_idx, valid):
-    """SPMD Nyström preconditioner build for P = U U^T + s I over
-    row-sharded x (VERDICT r4 item 1: the distributed CG previously
-    shipped Jacobi only, which the r4 measurements show stalls at the
-    n ~ 100k scale this component exists for).
+def _nystrom_local(k_nw, p_nw, x_local, *, axis, g_idx, valid):
+    """SPMD Nyström preconditioner build over row-sharded x: the sharded
+    counterpart of ``linalg.nystrom.make_nystrom_preconditioner`` (same P,
+    same stable apply — see that module for why not Woodbury).
 
-    Layout (the scaling-book recipe: replicate the small factor, shard
-    the tall one):
+    Layout (replicate the small factors, shard the tall ones):
       - landmarks z (r, d): REPLICATED, assembled with one psum of r*d
         floats (each device contributes the landmark rows it owns);
-      - L_mm = chol(K_mm) (r, r): computed redundantly per device (r^3/3
-        FLOPs, trivial) — identical on every device, no comm;
-      - U_local = K(x_local, z) L_mm^{-T} (n/p, r): ROW-SHARDED — the
-        O(n r) memory and O(n r^2 / p) build FLOPs both scale 1/p;
-      - G = s I + U^T U (r, r): one psum of r^2 floats, chol redundant.
+      - U_local = K(x_local, z) L_mm^{-T} (n/p, r): ROW-SHARDED;
+      - Q_local: a two-level TSQR — a local Householder QR of U_local,
+        an all_gather of the p small R factors (p r^2 floats), a
+        replicated QR of their stack — then the eigenvectors of R R^T,
+        so Q is orthonormal across devices to f32 rounding.
 
     Per CG iteration the apply costs two (n/p, r) GEMMs + ONE psum of
-    r*k floats (k = RHS block width) over ICI — at r = 2048, k = 17
-    that is 140 KB/device/iteration, noise next to the ring matvec's
-    n*k*4/p bytes * p steps.
+    r*k floats (k = RHS block width) over the interconnect — at r = 2048,
+    k = 17 that is 140 KB/device/iteration, noise next to the ring
+    matvec's n*k*4/p bytes * p steps.
 
     ``g_idx``: static global landmark indices (host-chosen, unpadded
     range). ``valid``: per-device mask for padded rows (or None).
-    Returns (U_local, chol_G).
+    Returns (Q_local, lam).
     """
     U_local = _nystrom_factor_local(
         k_nw, p_nw, x_local, axis=axis, g_idx=g_idx, valid=valid
     )
-    r = U_local.shape[1]
-    G_local = jnp.dot(
-        U_local.T, U_local, preferred_element_type=U_local.dtype,
-        precision=lax.Precision.HIGHEST,
-    )
-    G = lax.psum(G_local, axis) + jnp.asarray(shift, U_local.dtype) * jnp.eye(
-        r, dtype=U_local.dtype
-    )
-    chol_G = _chol.safe_cholesky(G).factor
-    return U_local, chol_G
+    hi = lax.Precision.HIGHEST
+    Q1, R1 = jnp.linalg.qr(U_local)  # (m, k1), (k1, r)
+    k1 = R1.shape[0]
+    Rs = lax.all_gather(R1, axis).reshape(-1, R1.shape[1])  # (p k1, r)
+    Q2, R = jnp.linalg.qr(Rs)
+    Q2_mine = lax.dynamic_slice_in_dim(Q2, lax.axis_index(axis) * k1, k1)
+    lam, Z = jnp.linalg.eigh(jnp.dot(R, R.T, precision=hi))
+    Q_local = jnp.dot(Q1, jnp.dot(Q2_mine, Z, precision=hi), precision=hi)
+    return Q_local, jnp.maximum(lam, 0.0)
 
 
 def _nystrom_factor_local(k_nw, p_nw, x_local, *, axis, g_idx, valid):
@@ -98,51 +97,19 @@ def _nystrom_factor_local(k_nw, p_nw, x_local, *, axis, g_idx, valid):
     return Ut.T
 
 
-def _nystrom_apply(U_local, chol_G, shift, axis):
-    """r -> P^{-1} r via Woodbury, vectors row-sharded over ``axis``;
-    one psum of (r, k) per application."""
-
-    def apply(v):
-        vec = v.ndim == 1
-        vv = v[:, None] if vec else v
-        w = lax.psum(
-            jnp.dot(
-                U_local.T, vv, preferred_element_type=vv.dtype,
-                precision=lax.Precision.HIGHEST,
-            ),
-            axis,
-        )
-        zz = _chol.cholesky_solve(chol_G, w)
-        out = (vv - jnp.dot(
-            U_local, zz, preferred_element_type=vv.dtype,
-            precision=lax.Precision.HIGHEST,
-        )) / shift
-        return out[:, 0] if vec else out
-
-    return apply
+def _nystrom_apply(Q_local, lam, shift, axis):
+    """r -> P^{-1} r, vectors row-sharded over ``axis``; one psum of (r, k)
+    per application."""
+    return lambda v: _nys.eig_apply(
+        Q_local, lam, shift, v, reduce=lambda w: lax.psum(w, axis)
+    )
 
 
-def _auto_block(k_nw, p_nw, dist_method, tol=1e-6):
-    """Per-ring-step kernel block matvec K(x_local, xb) @ vb.
-
-    On TPU with a stationary kernel this is the fused Pallas ``gram_matvec``
-    (the block is computed tile-by-tile in VMEM and never written to HBM);
-    elsewhere (CPU parity tests, non-stationary kernels) the dense XLA gram.
-    ``tol`` picks the output-dot precision: below 1e-5 the 3-pass bf16
-    split's ~1.5e-5 floor would lie to the CG residual (ADVICE r4).
-    """
-    if jax.default_backend() == "tpu" and _k.is_stationary(k_nw):
-        from gaussian_process_tpu.ops import pallas as _pops
-
-        _dm = "highest" if tol < 1e-5 else "split3"
-        return lambda xl, xb, vb: _pops.gram_matvec(
-            k_nw, p_nw, xl, xb, vb, dot_mode=_dm
-        )
-
-    def _xla(xl, xb, vb):
-        return _k.gram(k_nw, p_nw, xl, xb, method=dist_method) @ vb
-
-    return _xla
+def _auto_block(k_nw, p_nw):
+    """Per-ring-step kernel block matvec K(x_local, xb) @ vb through
+    ``ops.gram_matvec``: the block is rebuilt tile by tile and never
+    stored whole."""
+    return lambda xl, xb, vb: _mv.gram_matvec(k_nw, p_nw, xl, xb, vb)
 
 
 def make_posterior_mean_cg(
@@ -188,9 +155,7 @@ def make_posterior_mean_cg(
             y_local = jnp.where(valid, y_local, 0.0)
         else:
             valid = None
-        _block = block_fn if block_fn is not None else _auto_block(
-            k_nw, p_nw, dist_method, tol
-        )
+        _block = block_fn if block_fn is not None else _auto_block(k_nw, p_nw)
 
         p = lax.axis_size(axis)
         perm = [(i, (i + 1) % p) for i in range(p)]
@@ -216,14 +181,14 @@ def make_posterior_mean_cg(
         pdot = lambda u, v: lax.psum(jnp.sum(u * v, axis=0), axis)
         if preconditioner == "nystrom":
             n_eff = n_true if n_true is not None else n_pad_total
-            U_local, chol_G = _nystrom_local(
-                k_nw, p_nw, x_local, axis=axis, shift=diag_shift,
+            Q_local, lam = _nystrom_local(
+                k_nw, p_nw, x_local, axis=axis,
                 g_idx=_landmark_global_indices(n_eff, precond_rank),
                 valid=valid,
             )
             precond_kwargs = {
                 "precond_apply": _nystrom_apply(
-                    U_local, chol_G, diag_shift, axis
+                    Q_local, lam, diag_shift, axis
                 )
             }
         else:
@@ -239,7 +204,10 @@ def make_posterior_mean_cg(
             **precond_kwargs,
         )
         # cross term: mu* = sum over shards of K(x_test, x_local) @ alpha_local
-        mean_local = _k.gram(k_nw, p_nw, x_test_rep, x_local, method=dist_method) @ state.x
+        mean_local = jnp.dot(
+            _k.gram(k_nw, p_nw, x_test_rep, x_local, method=dist_method),
+            state.x, precision=lax.Precision.HIGHEST,
+        )
         mean = lax.psum(mean_local, axis)
         return mean, state.x, state.iters, state.resnorm
 
@@ -322,9 +290,7 @@ def _block_ctx(
         y_local = jnp.where(valid, y_local, 0.0)
     else:
         valid = None
-    _block = block_fn if block_fn is not None else _auto_block(
-        k_nw, p_nw, dist_method, tol
-    )
+    _block = block_fn if block_fn is not None else _auto_block(k_nw, p_nw)
 
     p = lax.axis_size(axis)
     perm = [(i, (i + 1) % p) for i in range(p)]
@@ -346,13 +312,13 @@ def _block_ctx(
 
     if preconditioner == "nystrom":
         n_eff = n_true if n_true is not None else n_pad_total
-        U_local, chol_G = _nystrom_local(
-            k_nw, p_nw, x_local, axis=axis, shift=diag_shift,
+        Q_local, lam = _nystrom_local(
+            k_nw, p_nw, x_local, axis=axis,
             g_idx=_landmark_global_indices(n_eff, precond_rank),
             valid=valid,
         )
         precond_kwargs = {
-            "precond_apply": _nystrom_apply(U_local, chol_G, diag_shift, axis)
+            "precond_apply": _nystrom_apply(Q_local, lam, diag_shift, axis)
         }
     else:
         precond_kwargs = {
@@ -421,7 +387,9 @@ def make_posterior_cg(
 
         with jax.named_scope("dist.cg_predict"):
             Ks_local = ctx["Ks_local"]
-            mean = lax.psum(Ks_local.T @ alpha_local, axis)
+            mean = lax.psum(jnp.dot(
+                Ks_local.T, alpha_local, precision=lax.Precision.HIGHEST
+            ), axis)
             kss = _k.gram_diag(kernel, params, x_test_rep)
             var = jnp.maximum(
                 kss - lax.psum(jnp.sum(Ks_local * U, axis=0), axis), 0.0
@@ -462,7 +430,7 @@ def make_posterior_cg_segments(
     (:func:`_block_ctx`):
 
     - ``build_pre(params, x) -> pre``: the sharded Nyström preconditioner
-      (U row-sharded, chol_G replicated), built ONCE and passed to every
+      (Q row-sharded, its eigenvalues replicated), built ONCE and passed to every
       segment as arrays — never rebuilt, never baked into a compile
       payload. (Empty tuple under "jacobi".)
     - ``start(params, x, y, x_test, pre) -> (CGState, bnorm)``: run at
@@ -487,8 +455,8 @@ def make_posterior_cg_segments(
     def _pre_kwargs(pre):
         if not nystrom:
             return None  # let _block_ctx's jacobi kwargs stand
-        U_local, chol_G, shift = pre
-        return {"precond_apply": _nystrom_apply(U_local, chol_G, shift, axis)}
+        Q_local, lam, shift = pre
+        return {"precond_apply": _nystrom_apply(Q_local, lam, shift, axis)}
 
     def _build_pre(params, x_local):
         k_nw, p_nw, white_var = _k.split_white(kernel, params)
@@ -503,12 +471,12 @@ def make_posterior_cg_segments(
         else:
             valid = None
         n_eff = n_true if n_true is not None else n_pad_total
-        U_local, chol_G = _nystrom_local(
-            k_nw, p_nw, x_local, axis=axis, shift=diag_shift,
+        Q_local, lam = _nystrom_local(
+            k_nw, p_nw, x_local, axis=axis,
             g_idx=_landmark_global_indices(n_eff, precond_rank),
             valid=valid,
         )
-        return U_local, chol_G, jnp.asarray(diag_shift, U_local.dtype)
+        return Q_local, lam, jnp.asarray(diag_shift, Q_local.dtype)
 
     def _start(params, x_local, y_local, x_test_rep, pre):
         ctx = _block_ctx(
@@ -540,7 +508,9 @@ def make_posterior_cg_segments(
         Ks_local = ctx["Ks_local"]
         alpha_local = state.x[:, 0]
         U = state.x[:, 1:]
-        mean = lax.psum(Ks_local.T @ alpha_local, axis)
+        mean = lax.psum(jnp.dot(
+            Ks_local.T, alpha_local, precision=lax.Precision.HIGHEST
+        ), axis)
         kss = _k.gram_diag(kernel, params, x_test_rep)
         var = jnp.maximum(
             kss - lax.psum(jnp.sum(Ks_local * U, axis=0), axis), 0.0

@@ -1,7 +1,7 @@
 """Distributed block-panel Cholesky and triangular solves over a device mesh.
 
 The exact-factorization half of SURVEY.md C14 ("distributed Cholesky/CG
-solves with psum/all-gather collectives over ICI"): the reference factorizes
+solves with psum/all-gather collectives"): the reference factorizes
 the full kernel matrix on one host (``np.linalg.cholesky``
 [ref: GP_regression.py:138]); here K lives row-sharded across the ``data``
 mesh axis (one block-row per device, the C13 layout of
@@ -12,14 +12,14 @@ block-panel algorithm:
       1. broadcast the diagonal block A[k,k]          (psum of masked block)
       2. L_kk = chol(A[k,k])      — replicated O(m^3), cheap vs the update
       3. L_ik = A[i,k] L_kk^-T    — every device TRSMs only ITS block (i=me)
-      4. all_gather the factored panel column L[:,k]  (n*m over ICI)
-      5. A[i,j] -= L_ik L_jk^T for the trailing columns (local MXU matmul)
+      4. all_gather the factored panel column L[:,k]  (n*m over the interconnect)
+      5. A[i,j] -= L_ik L_jk^T for the trailing columns (local matmul)
 
 Per-device compute is O(n^3/p) (the trailing update dominates), per-device
-communication O(n^2) — the all-gathered panels — which rides ICI. The serial
+communication O(n^2) — the all-gathered panels — over NVLink. The serial
 panel chain is the known hard part (SURVEY.md §7 "hard parts"); with p panels
 of width n/p the chain is short (p steps) and each step's collective overlaps
-a large MXU matmul, which is why the panel width is tied to the shard size
+a large matmul, which is why the panel width is tied to the shard size
 rather than a small cache-friendly block as on CPUs.
 
 Forward/backward block substitution follow the same pattern: per step one
@@ -49,7 +49,7 @@ def _i32(v):
 
 
 def _mm(a, b):
-    # Factorization-quality matmuls must not fall into bf16 MXU passes: the
+    # Factorization-quality matmuls must not fall into TF32: the
     # trailing-update error would compound across panels (same failure mode
     # the single-chip path hit — see gp/regression.py sample_posterior note).
     return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)

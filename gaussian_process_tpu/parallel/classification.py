@@ -80,9 +80,7 @@ def make_laplace_fit(
             valid = (me * m_local + jnp.arange(m_local)) < n_true
         else:
             valid = None
-        _block = block_fn if block_fn is not None else _auto_block(
-            k_nw, p_nw, dist_method, cg_tol
-        )
+        _block = block_fn if block_fn is not None else _auto_block(k_nw, p_nw)
         perm = [(i, (i + 1) % p) for i in range(p)]
 
         def Kmv(v_local):
@@ -219,9 +217,7 @@ def make_laplace_predict(
             valid = (me * m_local + jnp.arange(m_local)) < n_true
         else:
             valid = None
-        _block = block_fn if block_fn is not None else _auto_block(
-            k_nw, p_nw, dist_method, cg_tol
-        )
+        _block = block_fn if block_fn is not None else _auto_block(k_nw, p_nw)
         perm = [(i, (i + 1) % p) for i in range(p)]
 
         def Kmv(vv):
@@ -277,7 +273,9 @@ def make_laplace_predict(
         if valid is not None:
             Ks_local = jnp.where(valid[:, None], Ks_local, 0.0)
         pdot = lambda u, v: lax.psum(jnp.sum(u * v, axis=0), axis)
-        mean = lax.psum(Ks_local.T @ grad_local, axis)
+        mean = lax.psum(jnp.dot(
+            Ks_local.T, grad_local, precision=lax.Precision.HIGHEST
+        ), axis)
         rhs = sw[:, None] * Ks_local
         st = _cg.cg_solve(
             Bmv, rhs, tol=cg_tol, max_iters=cg_max_iters,

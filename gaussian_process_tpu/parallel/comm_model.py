@@ -1,17 +1,17 @@
-"""Analytic ICI communication model + compiled-HLO validation.
+"""Analytic interconnect communication model + compiled-HLO validation.
 
-The scaling bench predicts per-device ICI traffic for the distributed
+The scaling bench predicts per-device interconnect traffic for the distributed
 posterior and the distributed-CG iteration from exact counts of the
-collectives the SPMD bodies issue (:func:`ici_comm_model`, formerly
+collectives the SPMD bodies issue (:func:`collective_comm_model`, formerly
 inline in bench.py). VERDICT r4 weak #8: those predictions were never
 checked against what XLA actually compiled, so a modeling error (a
 collective added to an SPMD body, a shape change, GSPMD inserting a
-resharding transfer) would ship unnoticed until a real pod run.
+resharding transfer) would ship unnoticed until a real multi-card run.
 
 :func:`audit_collectives` closes that loop WITHOUT hardware: it parses
 the compiled program text (``jit(...).lower(...).compile().as_text()``
 — available on the emulated CPU mesh, where SPMD partitioning runs
-exactly as on a pod) for ``all-reduce`` / ``all-gather`` /
+exactly as on real cards) for ``all-reduce`` / ``all-gather`` /
 ``collective-permute`` / ``reduce-scatter`` instructions, tracks which
 ``while``-loop body each lives in (the panel/ring loops are
 ``lax.fori_loop(0, p, ...)``, so loop-body collectives execute p times),
@@ -42,14 +42,17 @@ _COLL_KINDS = ("all-reduce", "all-gather", "collective-permute",
                "reduce-scatter")
 
 
-def ici_comm_model(p: int, n: int, t: int, d: int,
-                   ici_link_gbps: float = 45.0) -> dict:
-    """Predicted per-device ICI communication for one distributed posterior
-    (parallel/cholesky.py) and one distributed-CG iteration (parallel/cg.py).
+def collective_comm_model(p: int, n: int, t: int, d: int,
+                          link_gbps: float = 450.0) -> dict:
+    """Predicted per-device interconnect communication for one distributed
+    posterior (parallel/cholesky.py) and one distributed-CG iteration
+    (parallel/cg.py).
 
     Volumes are exact counts of the collectives the SPMD bodies issue; the
-    time predictions divide by the assumed single-link bandwidth and are
-    labelled as model output, not measurement.
+    time predictions divide by ``link_gbps``, the per-direction bandwidth
+    of one card's NVLink (450 GB/s on an H100 SXM: NVIDIA's data sheet
+    gives 900 GB/s bidirectional), and are labelled as model output, not
+    measurement.
     - panel Cholesky: per panel step one (m, m) diag-block psum + one
       (m, m)-per-device all_gather (each device receives (p-1) m^2 blocks).
     - solves: forward = one (m, r) psum per panel step; backward = two.
@@ -76,7 +79,7 @@ def ici_comm_model(p: int, n: int, t: int, d: int,
     chol_bytes = p * (ring * m * m + ag * m * m) * B
     solve_bytes = (p * ring * m * t + 3 * p * ring * m * 1) * B
     cg_iter_bytes = p * m * (d + 1) * B  # ppermute: (m,d) coords + (m,1) vec
-    bw = ici_link_gbps * 1e9
+    bw = link_gbps * 1e9
     return {
         "p": p,
         "chol_bytes_per_device": int(chol_bytes),
@@ -190,7 +193,7 @@ def _per_device_bytes(kind: str, out_bytes: int, p: int) -> float:
 
 def verify_posterior_model(compiled_text: str, p: int, n: int, t: int,
                            d: int, rel_tol: float = 1e-6) -> dict:
-    """Cross-check :func:`ici_comm_model`'s chol/solve byte totals against
+    """Cross-check :func:`collective_comm_model`'s chol/solve byte totals against
     the collectives XLA actually compiled for
     ``parallel.make_distributed_posterior``.
 
@@ -204,7 +207,7 @@ def verify_posterior_model(compiled_text: str, p: int, n: int, t: int,
     """
     m = n // p
     B = 4
-    model = ici_comm_model(p, n, t, d)
+    model = collective_comm_model(p, n, t, d)
     chol = solve = other = 0.0
     for c in audit_collectives(compiled_text):
         mult = p if c["depth"] >= 1 else 1
@@ -244,7 +247,7 @@ def verify_cg_iteration_model(compiled_text: str, p: int, n: int, d: int,
     carries the coordinate block at its true minor width, so d is read
     from the model caller. Per-iteration psums (inner products) are
     counted and returned but excluded from the model figure, exactly as
-    :func:`ici_comm_model` documents. Raises AssertionError on mismatch.
+    :func:`collective_comm_model` documents. Raises AssertionError on mismatch.
     """
     m = n // p
     B = 4

@@ -1,9 +1,8 @@
 """Data-partitioned kernel-matrix construction (SURVEY.md C13).
 
 X is sharded by rows over the ``data`` mesh axis; each chip builds its
-block-row K[rows_local, :] with the same kernel algebra (or the Pallas tiled
-builder on TPU). The all-gather of X rides ICI and is O(n d) — negligible
-against the O(n^2 d / p) compute per chip.
+block-row K[rows_local, :] with the same kernel algebra. The all-gather of X
+is O(n d) bytes — negligible against the O(n^2 d / p) compute per chip.
 
 No reference equivalent: the reference always materialises the full K on one
 host [ref: GP_regression.py:126-128].
@@ -20,6 +19,7 @@ from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
 from gaussian_process_tpu.ops import kernels as _k
+from gaussian_process_tpu.ops import matvec as _mv
 
 
 def _local_block_row(kernel, params, x_local, x_full, row_offset, white_var, dist_method):
@@ -73,23 +73,23 @@ def ring_matvec(
     *,
     mesh: Mesh,
     axis: str = "data",
-    dist_method: str = "dot",
     block_fn=None,
 ) -> jnp.ndarray:
     """y = K(x, x) @ v with X and v row-sharded and K never materialised
     globally — the ring-attention communication pattern applied to kernel
     matvecs (SURVEY.md sec. 5, long-context row): each step computes the
     local (n/p, n/p) tile against the in-flight (x, v) block, then
-    ``ppermute``s the block to the ring neighbour so compute and ICI overlap.
+    ``ppermute``s the block to the ring neighbour so compute and communication overlap.
 
     O(n^2/p) compute and O(n) communication per device; the full K (O(n^2))
-    never exists anywhere. ``block_fn(x_local, xb, vb) -> tile @ vb``
-    overrides the local tile product (e.g. the Pallas fused matvec on TPU).
+    never exists anywhere. The local tile product defaults to
+    ``ops.gram_matvec``; ``block_fn(x_local, xb, vb) -> tile @ vb``
+    overrides it.
     """
     k_nw, p_nw, white_var = _k.split_white(kernel, params)
     if block_fn is None:
         def block_fn(xl, xb, vb):
-            return _k.gram(k_nw, p_nw, xl, xb, method=dist_method) @ vb
+            return _mv.gram_matvec(k_nw, p_nw, xl, xb, vb)
 
     def fn(x_local, v_local):
         p = lax.axis_size(axis)

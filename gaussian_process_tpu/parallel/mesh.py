@@ -1,10 +1,9 @@
 """Device-mesh construction for multi-chip GP inference.
 
 No reference equivalent — the reference is single-process NumPy with no
-communication backend of any kind (SURVEY.md C13-C16). TPU-native scale-out
-uses a ``jax.sharding.Mesh`` whose axes map onto ICI; XLA inserts the
-collectives (psum / all_gather / ppermute) that NCCL/MPI would provide
-elsewhere.
+communication backend of any kind (SURVEY.md C13-C16). Scale-out here uses
+a ``jax.sharding.Mesh`` over the cards (NVLink within a host); XLA inserts
+the collectives (psum / all_gather / ppermute) and hands them to NCCL.
 
 Axes:
 - ``data``: shards kernel-matrix block-rows / training points (C13);

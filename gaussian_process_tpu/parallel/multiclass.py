@@ -12,7 +12,7 @@ couplings of the algorithm are
     - R^T c = sum_c c_c                          -> one psum
 
 so a Newton iteration costs exactly four collectives regardless of C, all
-riding ICI. Class counts that do not divide the mesh axis are padded with
+riding the interconnect. Class counts that do not divide the mesh axis are padded with
 masked dummy classes: a dummy class has y = 0 and is excluded from the
 softmax, so pi = sqrt(W) = V = 0 and it contributes nothing to any psum —
 the padded fixed point equals the unpadded one exactly.

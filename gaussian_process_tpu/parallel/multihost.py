@@ -1,12 +1,12 @@
 """Multi-host (DCN) bring-up and host-coordination helpers (SURVEY.md C15).
 
 The reference has no communication backend of any kind — no NCCL/MPI/Gloo/UCX,
-no multiprocessing (SURVEY.md §2, parallelism statement). The TPU-native
-equivalent is ``jax.distributed.initialize``: every host connects to a
-coordinator over DCN, after which ``jax.devices()`` is the *global* device
-list and the same pjit/shard_map programs from :mod:`parallel.mesh` span the
-pod slice — XLA routes collectives over ICI within a host and DCN across
-hosts. No custom transport is needed or wanted.
+no multiprocessing (SURVEY.md §2, parallelism statement). The equivalent
+here is ``jax.distributed.initialize``: every host connects to a
+coordinator over the network, after which ``jax.devices()`` is the *global*
+device list and the same pjit/shard_map programs from :mod:`parallel.mesh`
+span every host — XLA routes collectives over NVLink within a host and the
+network across hosts. No custom transport is needed or wanted.
 
 Bring-up order (each process):
 
@@ -42,8 +42,9 @@ def initialize(
 
     Arguments default to the standard env vars (``JAX_COORDINATOR_ADDRESS``,
     ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) so launchers can configure
-    bring-up without code changes; on managed TPU pods all three may be None
-    and JAX auto-detects from the metadata server.
+    bring-up without code changes. Under a cluster manager JAX knows
+    (e.g. SLURM) all three may be None and JAX detects them; elsewhere
+    nothing tells JAX of a cluster, so pass them.
     """
     if jax._src.distributed.global_state.client is not None:  # already up
         return

@@ -6,10 +6,10 @@ One ``shard_map`` over a ('restart', 'data') mesh:
 - the candidate-params batch is sharded over ``restart`` (each restart group
   optimises its own hyperparameters — sharded search restarts, C16);
 - X and y are row-sharded over ``data``; each chip builds its kernel
-  block-row locally (C13), the block-rows ``all_gather`` over ICI into the
+  block-row locally (C13), the block-rows ``all_gather`` over the interconnect into the
   replicated K each group factorises (exact-Cholesky path, C14);
 - jax.value_and_grad runs *inside* the shard_map, so the backward pass's
-  collectives (psum-scatter duals of the gathers) also ride ICI;
+  collectives (psum-scatter duals of the gathers) also ride the interconnect;
 - the optax ascent update happens on-device; one jitted program per step.
 
 The reference has no distributed anything; its serial analogue is the

@@ -1,34 +1,23 @@
-"""Run EVERY bench mode and collect the JSON rows into one committed
-artifact (VERDICT.md round 2, item 2): gram / solve / chol @ n=10240 AND
-n=32768 / cg100k (mean+variance) / scaling.
+"""Run EVERY bench mode and collect the JSON rows into one artifact.
 
 Each mode runs in its own subprocess (bench.py reads GP_BENCH_MODE once at
-import; a fresh process also keeps one mode's compile cache pressure and
-device state from polluting the next measurement).
+import). This parent process never imports JAX, so each child has the card
+to itself and reports the device it ran on in its own rows.
 
-Rows MERGE into the existing artifact (VERDICT.md round 3, weak #2: the old
-overwrite semantics let a partial 2-mode re-run destroy the committed
-6-mode artifact). A mode's row is replaced only when that mode actually
-ran this invocation; rows for modes not re-measured survive with their
-original timestamps. The merged file is rewritten after every mode, so a
-crash mid-sweep still leaves a valid artifact. If ``--out`` does not exist
-yet, rows are seeded from the newest ``BENCH_ALL_r*.json`` present (so a
-new round's artifact starts from the previous round's evidence instead of
-empty).
-
-A hung mode (subprocess timeout) records a failure row and the sweep
-CONTINUES with the remaining modes (ADVICE r3 low #5 — previously the
-TimeoutExpired escaped, crashed the sweep, and lost the accounting).
+Rows MERGE into an existing ``--out`` file: a mode's row is replaced only
+when that mode actually ran this invocation, so a partial re-run never
+destroys other modes' evidence. The file is rewritten after every mode,
+so a crash mid-sweep still leaves a valid artifact. A hung mode
+(subprocess timeout) records a failure row and the sweep continues.
 
 Usage:
-    python run_bench_all.py [--out BENCH_ALL_r05.json] [--skip MODE ...]
+    python run_bench_all.py [--out bench_all.json] [--skip MODE ...]
                             [--only MODE ...]
 """
 
 from __future__ import annotations
 
 import argparse
-import glob
 import json
 import os
 import subprocess
@@ -42,23 +31,13 @@ MODES = [
     ("chol", {"GP_BENCH_N": "10240"}, 1800),
     ("chol", {"GP_BENCH_N": "32768", "GP_BENCH_SKIP_BASELINE": "1"}, 2400),
     ("cg100k", {}, 2400),
-    # 2x the north-star n on one 16 GB chip: segmented exact-resume CG
-    # (bounded device calls) + scan-chunked Nystrom build
     ("cg100k", {"GP_BENCH_N": "204800", "GP_BENCH_CG_ITERS": "300"}, 2400),
-    # 4x: dense K would be 671 GB; ~3 s/iter so segments shrink to ~14
     ("cg100k", {"GP_BENCH_N": "409600", "GP_BENCH_CG_ITERS": "300"}, 3000),
-    # r5: reference-scale variance (m=2048 test points, 4 block-CG chunks
-    # of 512 columns) — the honest large-m cost, not the m=8 proxy
+    # reference-scale variance: m=2048 test points in one block solve
     ("cg100k", {"GP_BENCH_M": "2048"}, 3000),
     ("laplace", {}, 1800),
-    # r5: matrix-free binary Laplace at the north-star scale (fit +
-    # reference-scale m=2048 prediction, K never materialised)
     ("laplace100k", {}, 2400),
-    # 4x: segmented host-loop Newton (bounded device calls) + narrowed
-    # prediction chunks; dense B at this n would be 671 GB
     ("laplace100k", {"GP_BENCH_N": "409600"}, 3600),
-    # r5: multiclass at the north-star scale — stacked-system CG with the
-    # full-coupling Nystrom-Woodbury preconditioner (~2-4 inner/step)
     ("multiclass100k", {}, 2400),
     ("scaling", {}, 1800),
 ]
@@ -74,29 +53,17 @@ def merge_rows(existing: list, key: str, new_rows: list) -> list:
 
 
 def _load_existing(out_path: str) -> list:
-    """Rows to merge into: the out file itself, else the newest committed
-    BENCH_ALL artifact (previous round's evidence)."""
-    candidates = [out_path]
-    if not os.path.exists(out_path):
-        prior = sorted(glob.glob("BENCH_ALL_r*.json"))
-        if prior:
-            candidates = [prior[-1]]
-    for path in candidates:
-        try:
-            with open(path) as f:
-                data = json.load(f)
-            rows = data.get("rows", [])
-            if path != out_path:
-                print(f"[run_bench_all] seeding rows from {path}", flush=True)
-            return rows
-        except (OSError, json.JSONDecodeError):
-            continue
-    return []
+    """Rows already in ``out_path`` (none if it does not exist yet)."""
+    try:
+        with open(out_path) as f:
+            return json.load(f).get("rows", [])
+    except (OSError, json.JSONDecodeError):
+        return []
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="BENCH_ALL_r05.json")
+    ap.add_argument("--out", default="bench_all.json")
     ap.add_argument("--skip", nargs="*", default=[])
     ap.add_argument("--only", nargs="*", default=None,
                     help="run only these mode keys (e.g. solve chol_n10240)")
@@ -104,12 +71,6 @@ def main() -> None:
 
     rows = _load_existing(args.out)
     meta = {"timestamp": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())}
-    try:
-        import jax
-
-        meta["device"] = str(jax.devices()[0].device_kind)
-    except Exception as e:  # pragma: no cover
-        meta["device"] = f"unavailable: {e}"
 
     def write():
         with open(args.out, "w") as f:

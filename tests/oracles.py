@@ -2,7 +2,7 @@
 
 Independent, vectorised re-implementations of the *mathematics* the reference
 scripts compute (R&W Algorithms 2.1 / 3.1 / 3.3 and the GPML sec. 5.4.3
-composite kernel), used as the ground truth the JAX/TPU implementations must
+composite kernel), used as the ground truth the JAX implementations must
 match (SURVEY.md sec. 4, test-strategy item 1/3). Citations point at the
 reference lines each formula mirrors; known reference bugs (SURVEY.md quirks
 Q1-Q5) are *not* reproduced — the corrected math is the spec.

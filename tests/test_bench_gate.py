@@ -61,12 +61,23 @@ def test_gate_fails_on_var_alone():
         b.check_parity_gate(1e-5, 1e-6, var_err=5e-2)
 
 
-def test_committed_reference_lookup():
-    # the contention defense reads the newest committed BENCH_ALL row
+def test_peaks_known_device():
     b = _bench()
-    ref = b._committed_reference_ms("exact_gp_regression_solve_n8192")
-    assert ref is not None and 1.0 < ref < 100.0
-    assert b._committed_reference_ms("no_such_metric_xyz") is None
+    peaks = b.peak_rates("NVIDIA H100 80GB HBM3")
+    assert peaks["tf32_tflops"] == 495.0 and peaks["hbm_tbps"] == 3.35
+
+
+def test_peaks_unknown_device_raises():
+    # an unknown device is an error, never a silent default peak
+    b = _bench()
+    with pytest.raises(KeyError):
+        b.peak_rates("Some Other Accelerator")
+
+
+def test_pct_peak_is_none_on_cpu():
+    # a CPU run is never written under the name of a device metric
+    b = _bench()
+    assert b._pct_peak_tf32(1e3) is None
 
 
 class TestRunBenchAllMerge:
@@ -101,16 +112,25 @@ class TestRunBenchAllMerge:
         by_mode = {r["mode"]: r for r in out}
         assert by_mode["gram"]["ok"] and not by_mode["solve"]["ok"]
 
-    def test_load_existing_seeds_from_prior_round(self, tmp_path, monkeypatch):
+    def test_load_existing_reads_only_the_out_file(self, tmp_path, monkeypatch):
         import json
 
         rba = self._rba()
         monkeypatch.chdir(tmp_path)
-        with open("BENCH_ALL_r03.json", "w") as f:
+        with open("older.json", "w") as f:
             json.dump({"meta": {}, "rows": [{"mode": "gram", "ok": True}]}, f)
-        rows = rba._load_existing("BENCH_ALL_r04.json")  # does not exist yet
-        assert rows == [{"mode": "gram", "ok": True}]
-        # once the out file exists it wins over older artifacts
-        with open("BENCH_ALL_r04.json", "w") as f:
+        assert rba._load_existing("bench_all.json") == []  # no seeding
+        with open("bench_all.json", "w") as f:
             json.dump({"meta": {}, "rows": [{"mode": "solve", "ok": True}]}, f)
-        assert rba._load_existing("BENCH_ALL_r04.json") == [{"mode": "solve", "ok": True}]
+        assert rba._load_existing("bench_all.json") == [{"mode": "solve", "ok": True}]
+
+    def test_parent_never_imports_jax(self):
+        """The sweep's parent must leave the card to its bench.py children."""
+        import os
+        import subprocess
+        import sys
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        code = ("import sys, run_bench_all; "
+                "sys.exit(1 if 'jax' in sys.modules else 0)")
+        assert subprocess.run([sys.executable, "-c", code], cwd=root).returncode == 0

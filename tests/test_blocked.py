@@ -1,19 +1,16 @@
-"""Blocked (panel) Cholesky / TRSM and the fused Pallas panel kernel.
+"""Left-looking blocked Cholesky.
 
-These are the production fast paths above ``MIN_BLOCKED_N`` (wired through
+The production factorization above ``MIN_BLOCKED_N`` (wired through
 ``linalg.safe_cholesky`` / ``gp.posterior``); correctness here is against
-NumPy/SciPy f64 oracles (SURVEY.md sec. 4 item 2). The threshold constant is
+NumPy f64 oracles (SURVEY.md sec. 4 item 2). The threshold constant is
 monkeypatched down so the multi-panel code path runs at CPU-friendly sizes —
 the panel loop is shape-generic, so n=608/block=128 exercises exactly the
-code that runs at n=8192/block=512 on TPU (where bench.py's parity gate
-validates it compiled). The Pallas panel kernel runs in interpret mode on
-CPU (kept to one small size — interpret mode is slow).
+code that runs at n=8192/block=1024 on the GPU.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from scipy.linalg import solve_triangular
 
 from gaussian_process_tpu.linalg import blocked
 from gaussian_process_tpu.linalg.cholesky import safe_cholesky
@@ -40,7 +37,7 @@ class TestBlockedCholesky:
         n = 608  # 5 panels at block=128, n % block != 0 (ragged tail panel)
         K = _spd(rng, n)
         L = np.asarray(
-            blocked.blocked_cholesky(jnp.asarray(K), block=128, use_pallas=False)
+            blocked.blocked_cholesky(jnp.asarray(K), block=128)
         )
         L0 = np.linalg.cholesky(K)
         np.testing.assert_allclose(L, L0, rtol=1e-8, atol=1e-9)
@@ -48,7 +45,7 @@ class TestBlockedCholesky:
 
     def test_small_n_delegates_to_stock(self, rng):
         K = _spd(rng, 64)
-        L = np.asarray(blocked.blocked_cholesky(jnp.asarray(K), use_pallas=False))
+        L = np.asarray(blocked.blocked_cholesky(jnp.asarray(K)))
         np.testing.assert_allclose(L, np.linalg.cholesky(K), rtol=1e-10)
 
     def test_nan_on_indefinite(self, rng, small_threshold):
@@ -56,7 +53,7 @@ class TestBlockedCholesky:
         K = _spd(rng, n)
         K[n - 1, n - 1] = -1e3  # indefinite trailing block
         L = np.asarray(
-            blocked.blocked_cholesky(jnp.asarray(K), block=128, use_pallas=False)
+            blocked.blocked_cholesky(jnp.asarray(K), block=128)
         )
         assert np.isnan(np.diag(L)).any()
 
@@ -65,7 +62,7 @@ class TestBlockedCholesky:
         """Left-looking tiled variant: identical semantics to stock/blocked
         (incl. ragged tail panels and n < block delegation)."""
         K = _spd(rng, n)
-        L = np.asarray(blocked.leftlook_cholesky(jnp.asarray(K), block=block))
+        L = np.asarray(blocked.blocked_cholesky(jnp.asarray(K), block=block))
         np.testing.assert_allclose(L, np.linalg.cholesky(K), rtol=1e-8, atol=1e-9)
         assert np.allclose(np.triu(L, 1), 0.0)
 
@@ -75,7 +72,7 @@ class TestBlockedCholesky:
         n = 384
         K = _spd(rng, n)
         K[10, 10] = -1e3  # indefinite inside the first panel
-        L = np.asarray(blocked.leftlook_cholesky(jnp.asarray(K), block=128))
+        L = np.asarray(blocked.blocked_cholesky(jnp.asarray(K), block=128))
         assert np.isnan(np.diag(L)).any()
 
     def test_safe_cholesky_routes_through_blocked(self, rng, small_threshold,
@@ -105,79 +102,3 @@ class TestBlockedCholesky:
         np.testing.assert_allclose(
             np.asarray(res.factor), np.linalg.cholesky(K), rtol=1e-8, atol=1e-9
         )
-
-
-class TestBlockedTriSolve:
-    @pytest.mark.parametrize("trans", [False, True])
-    def test_matches_scipy(self, rng, small_threshold, trans):
-        n = 608
-        K = _spd(rng, n)
-        L = np.linalg.cholesky(K)
-        B = rng.standard_normal((n, 32))
-        X = np.asarray(
-            blocked.blocked_tri_solve(
-                jnp.asarray(L), jnp.asarray(B), trans=trans, block=128
-            )
-        )
-        X0 = solve_triangular(L.T if trans else L, B, lower=not trans)
-        np.testing.assert_allclose(X, X0, rtol=1e-7, atol=1e-8)
-
-    @pytest.mark.parametrize("trans", [False, True])
-    def test_shared_panel_inverses(self, rng, small_threshold, trans):
-        """blocked_tri_solve(invs=panel_inverses(L)) — the exact reuse
-        pattern gp/regression.py's blocked branch relies on (one inversion
-        pass shared by the forward and the transposed solve) — must match
-        scipy in both directions (ADVICE r3 medium #2)."""
-        n = 608
-        L = np.linalg.cholesky(_spd(rng, n))
-        B = rng.standard_normal((n, 8))
-        invs = blocked.panel_inverses(jnp.asarray(L), block=128)
-        X = np.asarray(
-            blocked.blocked_tri_solve(
-                jnp.asarray(L), jnp.asarray(B), trans=trans, block=128,
-                invs=invs,
-            )
-        )
-        X0 = solve_triangular(L.T if trans else L, B, lower=not trans)
-        np.testing.assert_allclose(X, X0, rtol=1e-7, atol=1e-8)
-
-    def test_vector_rhs(self, rng, small_threshold):
-        n = 384
-        L = np.linalg.cholesky(_spd(rng, n))
-        b = rng.standard_normal(n)
-        x = np.asarray(
-            blocked.blocked_tri_solve(jnp.asarray(L), jnp.asarray(b), block=128)
-        )
-        np.testing.assert_allclose(
-            x, solve_triangular(L, b, lower=True), rtol=1e-7, atol=1e-8
-        )
-
-
-class TestPallasPanel:
-    def test_chol_inv_panel_interpret(self, rng):
-        from gaussian_process_tpu.ops.pallas.chol import chol_inv_panel
-
-        b = 128
-        X = rng.standard_normal((b, b)).astype(np.float32)
-        A = X @ X.T / b + np.eye(b, dtype=np.float32)
-        L, W = chol_inv_panel(jnp.asarray(A), interpret=True)
-        L0 = np.linalg.cholesky(A.astype(np.float64))
-        W0 = np.linalg.inv(L0)
-        assert np.max(np.abs(np.asarray(L) - L0)) / np.max(np.abs(L0)) < 1e-5
-        assert np.max(np.abs(np.asarray(W) - W0)) / np.max(np.abs(W0)) < 1e-5
-        # strictly lower-triangular outputs
-        assert np.allclose(np.triu(np.asarray(L), 1), 0.0)
-        assert np.allclose(np.triu(np.asarray(W), 1), 0.0)
-
-    def test_padding_path(self, rng):
-        """b not a multiple of 128 pads with an identity extension that must
-        not leak into the returned factors."""
-        from gaussian_process_tpu.ops.pallas.chol import chol_inv_panel
-
-        b = 96
-        X = rng.standard_normal((b, b)).astype(np.float32)
-        A = X @ X.T / b + np.eye(b, dtype=np.float32)
-        L, W = chol_inv_panel(jnp.asarray(A), interpret=True)
-        assert L.shape == (b, b) and W.shape == (b, b)
-        L0 = np.linalg.cholesky(A.astype(np.float64))
-        assert np.max(np.abs(np.asarray(L) - L0)) / np.max(np.abs(L0)) < 1e-5

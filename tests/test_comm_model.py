@@ -1,4 +1,4 @@
-"""Analytic ICI comm model vs the compiled SPMD program (VERDICT r4 weak
+"""Analytic interconnect comm model vs the compiled SPMD program (VERDICT r4 weak
 #8: the scaling row's byte counts were derived but never compared against
 what XLA actually compiled). parallel/comm_model.py parses the compiled
 HLO for collectives, accounts loop multiplicity through the while/fusion

@@ -178,10 +178,10 @@ class TestDistance:
 
 
 class TestMatmulPrecision:
-    """TPU f32 matmuls default to bfloat16 MXU passes whose ~8e-3 relative
-    error exceeds the GP jitter scale and corrupts kernel matrices outright
-    (measured 0.27 abs error in an RBF gram at n=4096 on TPU v5e). CPU runs
-    at full precision either way, so correctness tests cannot catch a
+    """A default-precision f32 matmul runs in TF32 on an H100 (~3e-4
+    relative error measured on a 2048 x 2048 product), an error that
+    exceeds the GP jitter scale and corrupts kernel matrices. CPU runs at
+    full precision either way, so correctness tests cannot catch a
     regression — these tests pin precision=HIGHEST in the traced program."""
 
     @staticmethod

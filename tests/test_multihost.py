@@ -2,7 +2,7 @@
 (SURVEY.md §4, strategy item 4; component C15).
 
 The reference has no distributed communication of any kind — this validates
-the TPU-native replacement (jax.distributed + global meshes + collectives)
+the replacement (jax.distributed + global meshes + collectives)
 end-to-end without a cluster: process-spanning mesh, cross-host sharded LML
 against a float64 oracle, host barriers, per-rank checkpointing.
 """

@@ -182,79 +182,6 @@ class TestPosteriorCG:
         np.testing.assert_allclose(a.var, b.var, rtol=1e-6, atol=1e-10)
 
 
-class TestBlockedSolveBranch:
-    """The n_train > MIN_BLOCKED_N blocked-solve branch in ``posterior()``
-    and ``log_marginal_likelihood()`` (panel_inverses reuse, mixed
-    HIGH/HIGHEST precision, z_y/v column split) previously only executed on
-    real-TPU bench runs — the same precision-sensitive territory that
-    produced the round-2 85x parity regression (ADVICE r3 medium #2). These
-    tests force the branch on CPU at small n and assert it matches the
-    stock tri_solve path exactly (on CPU f64 both precisions are true f64,
-    so any disagreement is a STRUCTURAL bug in the blocked routing: wrong
-    column split, wrong transpose, stale panel inverse)."""
-
-    def _route_blocked(self, monkeypatch, block):
-        from gaussian_process_tpu.linalg import blocked
-
-        calls = {"solve": 0, "invs": 0}
-        real_solve = blocked.blocked_tri_solve
-        real_invs = blocked.panel_inverses
-
-        def spy_solve(L, B, **kw):
-            calls["solve"] += 1
-            kw.setdefault("block", block)
-            return real_solve(L, B, **kw)
-
-        def spy_invs(L, **kw):
-            calls["invs"] += 1
-            kw.setdefault("block", block)
-            return real_invs(L, **kw)
-
-        # regression.py reads these through the module at call time, so the
-        # patched dispatch threshold AND the spy wrappers both take effect;
-        # block is forced down so small n exercises the multi-panel path
-        # (the def-time block=DEFAULT_BLOCK default would give one panel).
-        monkeypatch.setattr(blocked, "MIN_BLOCKED_N", block)
-        monkeypatch.setattr(blocked, "DEFAULT_BLOCK", block)
-        monkeypatch.setattr(blocked, "blocked_tri_solve", spy_solve)
-        monkeypatch.setattr(blocked, "panel_inverses", spy_invs)
-        return calls
-
-    def test_posterior_blocked_branch_matches_stock(self, rng, monkeypatch):
-        n, m = 200, 40  # block=64: panels (64, 64, 64, 8) — ragged tail
-        x = rng.uniform(-5, 5, (n, 3))
-        y = rng.standard_normal(n)
-        xs = rng.uniform(-5, 5, (m, 3))
-        k = ops.RBF()
-        p = k.init_params()
-        stock = gp.posterior(k, p, x, y, xs, noise_variance=NOISE)
-
-        calls = self._route_blocked(monkeypatch, block=64)
-        routed = gp.posterior(k, p, x, y, xs, noise_variance=NOISE)
-        assert calls["solve"] == 2 and calls["invs"] == 1, (
-            "posterior did not take the blocked branch", calls)
-
-        np.testing.assert_allclose(routed.mean, stock.mean, rtol=1e-9, atol=1e-12)
-        np.testing.assert_allclose(routed.var, stock.var, rtol=1e-8, atol=1e-12)
-        np.testing.assert_allclose(float(routed.lml), float(stock.lml), rtol=1e-11)
-        np.testing.assert_allclose(routed.alpha, stock.alpha, rtol=1e-8, atol=1e-12)
-        np.testing.assert_allclose(routed.v, stock.v, rtol=1e-8, atol=1e-12)
-
-    def test_lml_blocked_branch_matches_stock(self, rng, monkeypatch):
-        n = 200
-        x = rng.uniform(-5, 5, (n, 3))
-        y = rng.standard_normal(n)
-        k = ops.RBF()
-        p = k.init_params()
-        stock = float(gp.log_marginal_likelihood(k, p, x, y, noise_variance=NOISE))
-
-        calls = self._route_blocked(monkeypatch, block=64)
-        routed = float(gp.log_marginal_likelihood(k, p, x, y, noise_variance=NOISE))
-        assert calls["solve"] == 2 and calls["invs"] == 1, (
-            "log_marginal_likelihood did not take the blocked branch", calls)
-        np.testing.assert_allclose(routed, stock, rtol=1e-11)
-
-
 class TestSegmentedCG:
     """posterior_cg_segmented: bounded-latency resumable segments must
     reproduce the monolithic posterior_cg to solver tolerance, and the

@@ -193,6 +193,35 @@ def test_time_fn_excludes_compile():
     assert 0 < stats["min_s"] <= stats["mean_s"] < 5.0  # compiled call is fast
 
 
+@pytest.fixture
+def restore_cache_config():
+    keys = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+    saved = {k: getattr(jax.config, k) for k in keys}
+    yield
+    for k, v in saved.items():
+        jax.config.update(k, v)
+
+
+def test_compile_cache_env_var_wins(monkeypatch, tmp_path, restore_cache_config):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX reads it and the helper sets
+    nothing."""
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert profiling.enable_persistent_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_defaults_to_checkout(monkeypatch, tmp_path, restore_cache_config):
+    """Without the variable the cache lands in <checkout>/.jax_cache,
+    whatever the working directory."""
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.chdir(tmp_path)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want = os.path.join(root, ".jax_cache")
+    assert profiling.enable_persistent_compile_cache() == want
+    assert jax.config.jax_compilation_cache_dir == want
+
+
 def test_stopwatch_phases():
     sw = profiling.Stopwatch()
     with sw.phase("build"):
